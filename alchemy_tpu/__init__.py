@@ -1,4 +1,5 @@
-"""alchemy_tpu — a TPU-native FHE framework with ALCHEMY's capabilities.
+"""alchemy_tpu — BGV homomorphic encryption compiled to XLA, with ALCHEMY's
+capabilities.
 
 This top-level module re-exports the everyday surface, mirroring the
 reference's `Crypto.Alchemy` shim (Crypto/Alchemy.hs:17-25 = Language +

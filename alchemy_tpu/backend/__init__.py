@@ -4,8 +4,8 @@
   match limb-for-limb (replaces the reference's Lol/lol-cpp as the semantics
   pin, SURVEY.md §7 step 1).
 - `xla`: jnp uint32 lane arithmetic (Shoup / split-Barrett), jit-able, runs on
-  CPU and TPU; bit-identical to golden.
-- `pallas`: hand-written TPU kernels for the hot ops (NTT, fused ct ops).
+  the CPU and the GPU; bit-identical to golden.
+- `checked`: runs every op on xla and golden and asserts bit-identity.
 
 Note: accessors are named *_backend to avoid colliding with the submodule
 attributes Python sets on the package when the submodules are imported.

@@ -2,7 +2,7 @@
 
 All residues are stored in [0, q) as int64; every product is reduced mod q
 before accumulation so nothing exceeds 2^62. This backend is the bit-exact
-oracle for the TPU backends (SURVEY.md §4 test plan (a)-(b)).
+oracle for the accelerator backends (SURVEY.md §4 test plan (a)-(b)).
 """
 
 from __future__ import annotations

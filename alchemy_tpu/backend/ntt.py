@@ -26,69 +26,62 @@ from alchemy_tpu.nt.primes import root_of_unity
 
 
 @lru_cache(maxsize=None)
+def _limb_tables(n: int, q: int):
+    """One limb's tables (host numpy uint32): per stage s, the twiddles
+    w^(j·2^s), their inverses and both Shoup companions; the pre-twist ψ^j
+    and post-twist ψ^(-j)·n^(-1) with companions. Cached per limb, so the
+    chains of a deep circuit, which share their limbs, build each once."""
+    k = n.bit_length() - 1
+    psi = root_of_unity(2 * n, q)
+    w = psi * psi % q
+    psi_inv = pow(psi, -1, q)
+    n_inv = pow(n, -1, q)
+
+    def with_shoup(vals):
+        return (np.array(vals, dtype=np.uint32),
+                np.array([(int(x) << 32) // q for x in vals], dtype=np.uint32))
+
+    fwd, inv = [], []
+    for s in range(k):
+        m = n >> (s + 1)
+        step = pow(w, 1 << s, q)
+        tw = np.empty(m, dtype=np.int64)
+        x = 1
+        for j in range(m):
+            tw[j] = x
+            x = x * step % q
+        fwd.append(with_shoup(tw))
+        inv.append(with_shoup([pow(int(t), -1, q) for t in tw]))
+    pre = with_shoup([pow(psi, j, q) for j in range(n)])
+    post = with_shoup([pow(psi_inv, j, q) * n_inv % q for j in range(n)])
+    return fwd, inv, pre, post
+
+
+@lru_cache(maxsize=None)
 def ntt_tables(n: int, qs: tuple[int, ...]):
-    """Per-(ring size, chain) twiddle tables as device arrays.
+    """Per-(ring size, chain) twiddle tables, stacked over the limbs.
 
     Returns dict with, per stage s (m = n >> (s+1)):
       fwd[s]:  [L, m] twiddles w^(j·2^s) and Shoup companions
       inv[s]:  [L, m] inverse twiddles
     plus pre-twist ψ^j and post-twist ψ^(-j)·n^(-1) vectors [L, n].
+    Host numpy constants: safe to cache across jit traces (they embed as
+    compile-time constants; device arrays here would leak tracers).
     """
     assert n & (n - 1) == 0, "fast NTT path requires power-of-2 size"
-    L = len(qs)
     k = n.bit_length() - 1
-    fwd, fwd_s, inv, inv_s = [], [], [], []
-    pre, pre_s, post, post_s = [], [], [], []
-    for q in qs:
-        psi = root_of_unity(2 * n, q)
-        w = psi * psi % q
-        winv = pow(w, -1, q)
-        psi_inv = pow(psi, -1, q)
-        n_inv = pow(n, -1, q)
-        pre_q = np.array([pow(psi, j, q) for j in range(n)], dtype=np.int64)
-        post_q = np.array([pow(psi_inv, j, q) * n_inv % q for j in range(n)], dtype=np.int64)
-        pre.append(pre_q)
-        post.append(post_q)
-        pre_s.append([(int(x) << 32) // q for x in pre_q])
-        post_s.append([(int(x) << 32) // q for x in post_q])
-        f_stages, fs_stages, i_stages, is_stages = [], [], [], []
-        for s in range(k):
-            m = n >> (s + 1)
-            step = pow(w, 1 << s, q)
-            tw = np.empty(m, dtype=np.int64)
-            x = 1
-            for j in range(m):
-                tw[j] = x
-                x = x * step % q
-            itw = np.array([pow(int(t), -1, q) for t in tw], dtype=np.int64)
-            f_stages.append(tw)
-            fs_stages.append([(int(t) << 32) // q for t in tw])
-            i_stages.append(itw)
-            is_stages.append([(int(t) << 32) // q for t in itw])
-        fwd.append(f_stages)
-        fwd_s.append(fs_stages)
-        inv.append(i_stages)
-        inv_s.append(is_stages)
+    limbs = [_limb_tables(n, q) for q in qs]
 
-    def dev(stage_lists, s):
-        # host numpy constants: safe to cache across jit traces (they embed
-        # as compile-time constants; device arrays here would leak tracers)
-        return np.stack([np.array(stage_lists[l][s], dtype=np.uint32) for l in range(L)])
+    def stack(pick):
+        return tuple(np.stack([pick(t)[i] for t in limbs]) for i in (0, 1))
 
-    tables = {
+    return {
         "q": np.array(qs, dtype=np.uint32)[:, None],
-        "fwd": [(dev(fwd, s), dev(fwd_s, s)) for s in range(k)],
-        "inv": [(dev(inv, s), dev(inv_s, s)) for s in range(k)],
-        "pre": (
-            np.stack(pre).astype(np.uint32),
-            np.stack([np.array(x, dtype=np.uint32) for x in pre_s]),
-        ),
-        "post": (
-            np.stack(post).astype(np.uint32),
-            np.stack([np.array(x, dtype=np.uint32) for x in post_s]),
-        ),
+        "fwd": [stack(lambda t, s=s: t[0][s]) for s in range(k)],
+        "inv": [stack(lambda t, s=s: t[1][s]) for s in range(k)],
+        "pre": stack(lambda t: t[2]),
+        "post": stack(lambda t: t[3]),
     }
-    return tables
 
 
 def _add_m(a, b, q):

@@ -1,8 +1,8 @@
-"""MXU-path negacyclic NTT: 4-step factorization as exact bf16 matmuls.
+"""Matmul negacyclic NTT: 4-step factorization as exact bf16 matmuls.
 
-The butterfly NTT (backend/ntt.py) is VPU/HBM-bound. The MXU path computes
-NTT_n = (DFT_n1 ⊗ I)·twiddle·(I ⊗ DFT_n2) with the per-factor DFTs as
-matrix multiplications on the systolic array:
+The butterfly NTT (backend/ntt.py) is elementwise- and memory-bound. This
+path computes NTT_n = (DFT_n1 ⊗ I)·twiddle·(I ⊗ DFT_n2) with the per-factor
+DFTs as matrix multiplications on the tensor cores:
 
 - 32-bit operands are split into four unsigned 8-bit digit planes;
 - the matrix is pre-scaled per operand plane: V_d = 2^(8d)·W mod q is
@@ -14,8 +14,8 @@ matrix multiplications on the systolic array:
 - only FOUR plane sums S_f remain (vs seven diagonal sums in the naive
   scheme), and Σ_f S_f·2^(8f) < 2^51, so the whole value is accumulated
   exactly in a (lo, hi) uint32 pair and reduced mod q ONCE (one Shoup
-  multiply by 2^32 mod q + one 16-bit-split reduction) — ~3× fewer VPU
-  ops per matmul stage than reducing each diagonal sum separately.
+  multiply by 2^32 mod q + one 16-bit-split reduction) — ~3× fewer
+  elementwise ops per matmul stage than reducing each diagonal sum separately.
 
 Output slot order is the (k1, k2) grid order (k = k1 + n1·k2 at position
 k1·n2 + k2) — fixed and self-inverse; pointwise ct ops are order-agnostic
@@ -48,7 +48,7 @@ def _pick_split(n: int) -> tuple[int, int]:
                 best = (score, n1, n2)
         n1 *= 2
     if best is None:
-        raise ValueError(f"ring size {n} too large for the 2-level MXU NTT")
+        raise ValueError(f"ring size {n} too large for the 2-level matmul NTT")
     return best[1], best[2]
 
 
@@ -70,7 +70,7 @@ def scaled_planes(M: np.ndarray, q: int) -> np.ndarray:
 
 @lru_cache(maxsize=None)
 def mxu_tables(n: int, qs: tuple[int, ...]):
-    """Host tables for the 4-step MXU NTT (cached numpy)."""
+    """Host tables for the 4-step matmul NTT (cached numpy)."""
     n1, n2 = _pick_split(n)
     L = len(qs)
     W1 = np.empty((L, n1, n1), dtype=np.int64)    # DFT over j1 (root w^n2)
@@ -168,8 +168,8 @@ def _digit_planes_runtime(x):
 # dot. Operands are re-centered to [-128, 127]; the affine correction
 # S_f = dot_f + 128·bytesum(x)[r] + 128·Σ u_{d,f}[a,·] restores the unsigned
 # value (the 128² cross terms cancel between the row and column corrections).
-# On int8-capable MXUs (v5e+: 2× bf16 MAC rate) this roughly halves the
-# matmul cycle cost of every NTT stage.
+# Where int8 products run at twice the bf16 rate this roughly halves the
+# matmul cost of every NTT stage.
 # ---------------------------------------------------------------------------
 
 
@@ -206,18 +206,28 @@ def _planes8_runtime(x):
     return x8, bsum
 
 
-def _recombine_planes(sums, t, fast_ok: bool = False):
+def _recombine_planes(sums, t, K: int, fast_ok: bool = False):
     """Σ_f S_f·2^(8f) < 2^51 assembled exactly as (lo, hi) u32, one mod-q
-    reduction (shared tail of _matmul_mod / the int8 variants).
+    reduction (shared tail of _matmul_mod / the int8 variants). K is the
+    contraction length of each operand plane behind the sums.
 
-    fast_ok=True (the unsigned bf16-plane paths only, NOT int8) enables
-    the byte-serial assembly for q < 2^30: the scaled weights' top byte is
-    < 64, bounding every byte-carry intermediate in u32 for contraction
-    K ≤ 256, so one Shoup multiply + one conditional subtract replace the
-    compare/select carry chain (see pallas/ntt_pallas._recombine_sums_fast
-    for the bound derivation). Bit-identical canonical outputs."""
+    fast_ok=True (the unsigned bf16-plane paths only, NOT int8) enables a
+    byte-serial assembly when q < 2^30 and K ≤ 256; otherwise the exact
+    compare/carry chain below runs. Bit-identical canonical outputs.
+
+    Bound: the scaled weights 2^(8d)·W mod q are < 2^30, so their top byte
+    planes are < 64; with 8-bit operand planes,
+      s_f ≤ 4·K·255·255 = 66,585,600  (f ≤ 2),
+      s_3 ≤ 4·K·255·63  = 16,450,560.
+    Propagating each sum's high bits into the next byte lane,
+      u = (s_0 >> 8) + s_1 ≤ 66,845,700,  v = (u >> 8) + s_2 ≤ 66,846,716,
+      w = (v >> 8) + s_3 ≤ 261,120 + 16,450,560 = 16,711,680 < 2^24,
+    so value = b_0 + 2^8·b_1 + 2^16·b_2 + 2^24·w = w0 + 2^16·m with
+    w0 = b_0 + 2^8·b_1 < 2^16 and m = b_2 + 2^8·w < 2^32: no u32 overflow
+    anywhere, no compare-carries. One Shoup multiply m·2^16 mod q plus one
+    conditional subtract (2^16 < q) then canonicalizes w0 + 2^16·m."""
     q = t["q"]
-    if (fast_ok and isinstance(q, np.ndarray)
+    if (fast_ok and K <= MAX_FACTOR and isinstance(q, np.ndarray)
             and bool((q < (1 << 30)).all())):
         s0, s1, s2, s3 = sums
         b0 = s0 & np.uint32(0xFF)
@@ -254,7 +264,7 @@ def _matmul_mod8(x, W8, t):
     ccb = jnp.asarray(cc)[:, :, None, :]                      # [L, 4f, 1, A]
     S = (dot + corr + ccb).astype(jnp.uint32)                 # [..., L, 4f, R, A]
     sums = [S[..., f, :, :] for f in range(4)]
-    return _recombine_planes(sums, t)
+    return _recombine_planes(sums, t, x.shape[-1])
 
 
 def _matmul_mod8_bcast(x, W8, t):
@@ -269,7 +279,7 @@ def _matmul_mod8_bcast(x, W8, t):
     ccb = jnp.asarray(cc)[:, :, None, :]
     S = (dot + corr + ccb).astype(jnp.uint32)
     sums = [S[..., f, :, :] for f in range(4)]
-    return _recombine_planes(sums, t)
+    return _recombine_planes(sums, t, x.shape[-1])
 
 
 def _reduce_u32g(v, q, r16, r16s):
@@ -278,7 +288,7 @@ def _reduce_u32g(v, q, r16, r16s):
 
 
 def _matmul_mod(x, Wp, t):
-    """Modular matmul over the MXU: x [..., L, R, K] u32 × scaled planes
+    """Modular matmul on the tensor cores: x [..., L, R, K] u32 × scaled planes
     Wp [L, 4, 4, K_out, K] (V_{d,f} of V_d = 2^(8d)·W mod q; DFT matrix
     applied as out[r, a] = Σ_b W[a, b]·x[r, b]).
 
@@ -304,7 +314,7 @@ def _matmul_mod(x, Wp, t):
                     preferred_element_type=jnp.float32,
                 ).astype(jnp.uint32)
                 sums[f] = prod if sums[f] is None else sums[f] + prod
-        return _recombine_planes(sums, t, fast_ok=True)
+        return _recombine_planes(sums, t, x.shape[-1], fast_ok=True)
     for d in range(4):
         for f in range(4):
             # einsum over K: [..., L, R, K] × [L, K_out, K] → [..., L, R, K_out]
@@ -314,7 +324,7 @@ def _matmul_mod(x, Wp, t):
             ).astype(jnp.uint32)
             sums[f] = prod if sums[f] is None else sums[f] + prod
     # V = Σ_f S_f·2^(8f) < 2^51: exact 64-bit accumulation in (lo, hi)
-    return _recombine_planes(sums, t, fast_ok=True)
+    return _recombine_planes(sums, t, x.shape[-1], fast_ok=True)
 
 
 def _mm(x, key, t, i8: bool):
@@ -323,7 +333,7 @@ def _mm(x, key, t, i8: bool):
 
 @partial(jax.jit, static_argnums=(1, 2, 3))
 def ntt_mxu(x, n: int, qs: tuple[int, ...], i8: bool = False):
-    """Forward negacyclic NTT via MXU matmuls; x [..., L, n] natural order in,
+    """Forward negacyclic NTT via digit-plane matmuls; x [..., L, n] natural order in,
     (k1, k2) grid order out. The psi pre-twist is folded into W1/tw.
     i8=True uses the int8 merged-plane matmuls (same values)."""
     t = mxu_tables8(n, qs) if i8 else mxu_tables(n, qs)
@@ -357,7 +367,7 @@ def _matmul_mod_bcast(x, Wp, t):
                 preferred_element_type=jnp.float32,
             ).astype(jnp.uint32)
             sums[f] = prod if sums[f] is None else sums[f] + prod
-    return _recombine_planes(sums, t, fast_ok=True)
+    return _recombine_planes(sums, t, x.shape[-1], fast_ok=True)
 
 
 @partial(jax.jit, static_argnums=(1, 2, 3))

@@ -1,23 +1,22 @@
-"""3-factor MXU negacyclic NTT: n = A·B·r with A = B = 128 and r ∈ {1,2,4}.
+"""3-factor matmul negacyclic NTT: n = A·B·r with A = B = 128 and r ∈ {1,2,4}.
 
-The 2-factor MXU NTT (backend/ntt_mxu.py) costs n·(n1+n2) base MACs per limb
-with n1+n2 = 384 at n = 2^15 (256·128). Factoring the lane axis once more —
-A·B MXU factors of 128 (the systolic array's native contraction) plus a tiny
-radix-r DFT done on the VPU — cuts that to n·(A+B) = n·256 at 2^15 and
-n·256 (+cheap radix-4) at 2^16: 1.5–2× less MXU work, which dominates the
-fused relinearization kernel. Slot order differs from ntt_mxu (each impl's
+The 2-factor matmul NTT (backend/ntt_mxu.py) costs n·(n1+n2) base MACs per
+limb with n1+n2 = 384 at n = 2^15 (256·128). Factoring the lane axis once
+more — A·B matmul factors of 128 plus a tiny radix-r DFT done elementwise —
+cuts that to n·(A+B) = n·256 at 2^15 and n·256 (+cheap radix-4) at 2^16:
+1.5–2× less matmul work. Slot order differs from ntt_mxu (each impl's
 order is fixed and self-consistent; all SHE ops are pointwise in the NTT
 domain — DESIGN.md).
 
 Index plan (forward): j = j1·(B·r) + j3·B + j2, natural order reshaped to
 rows j1 (sublanes), lanes j3·B + j2.
 
-  stage 1 (MXU): contract j1 with W1[k1,j1] = w^{Br·j1·k1}·ψ^{j1·Br}
-  twiddle  (VPU): T[k1, j3·B+j2] = w^{k1·(j3B+j2)}·ψ^{j3B+j2}
-  radix-r  (VPU): DFT_r over j3 (u^{B}-powers are r-th roots; for r=2 a
+  stage 1 (matmul): contract j1 with W1[k1,j1] = w^{Br·j1·k1}·ψ^{j1·Br}
+  twiddle  (elementwise): T[k1, j3·B+j2] = w^{k1·(j3B+j2)}·ψ^{j3B+j2}
+  radix-r  (elementwise): DFT_r over j3 (u^{B}-powers are r-th roots; for r=2 a
       single add/sub pair), then the small twiddle u^{j2·k3} on the k3 ≥ 1
       halves (u = w^{A})
-  stage 3 (MXU): DFT_B over j2 with root u^{r}, one [·,B]@[B,B] dot per k3
+  stage 3 (matmul): DFT_B over j2 with root u^{r}, one [·,B]@[B,B] dot per k3
 
 Output slot layout: position k1·(B·r) + k3·B + k2. All matrices are applied
 as exact digit-plane bf16 matmuls (scaled planes, one reduction per stage —
@@ -33,10 +32,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from alchemy_tpu.backend.ntt_mxu import (
-    _digit_planes_runtime,
     _matmul_mod,
     _matmul_mod_bcast,
-    _recombine_planes,
     scaled_planes,
 )
 from alchemy_tpu.backend.xla import _cond_sub, mulmod_shoup, shoup_const
@@ -48,7 +45,7 @@ B_FACTOR = 128
 
 def _split3(n: int) -> tuple[int, int, int]:
     """n = A·B·r with A = B = 2^k ≤ 128 and the radix r ∈ {1, 2, 4} as small
-    as possible (r > 1 only once A and B saturate at the MXU-native 128)."""
+    as possible (r > 1 only once A and B saturate at 128)."""
     log_n = n.bit_length() - 1
     if 1 << log_n != n:
         raise ValueError(f"ring size {n} is not a power of two")
@@ -129,7 +126,7 @@ def mxu3_tables(n: int, qs: tuple[int, ...]):
     r16s = np.array(
         [shoup_const((1 << 16) % q, q) for q in qs], dtype=np.uint32
     )[:, None, None]
-    # r-th roots of unity u^{B·j3·k3} for the VPU DFT_r (host ints per limb)
+    # r-th roots of unity u^{B·j3·k3} for the elementwise DFT_r (host ints per limb)
     urth = np.empty((L, r, r), dtype=np.uint32)
     urth_s = np.empty((L, r, r), dtype=np.uint32)
     urth_i = np.empty((L, r, r), dtype=np.uint32)
@@ -161,7 +158,7 @@ def mxu3_tables(n: int, qs: tuple[int, ...]):
 
 
 def _dft_r(blocks, roots, roots_s, q, inverse: bool):
-    """VPU DFT_r over a list of r [..., B]-blocks; roots [L-broadcastable]
+    """Elementwise DFT_r over a list of r [..., B]-blocks; roots [L-broadcastable]
     per (k3, j3) from the urth table. For r ≤ 2 this is pure add/sub."""
     r = len(blocks)
     if r == 1:

@@ -1,6 +1,7 @@
-"""XLA backend: exact mod-q arithmetic on uint32 lanes (jnp; CPU and TPU).
+"""XLA backend: exact mod-q arithmetic on uint32 lanes (jnp; CPU and GPU).
 
-TPU has no 64-bit integer lanes and no mulhi, so (DESIGN.md):
+Every product is built from 32-bit lane operations, with no 64-bit integer
+type and no mulhi (DESIGN.md):
 - full 32×32→64 products via 16-bit splits with explicit carries;
 - constant multiplication (transform matrices, twiddles, per-limb scalars)
   via Shoup precomputation: r = lo(a·w) − lo(mulhi(a, ⌊w·2^32/q⌋)·q), one
@@ -135,29 +136,27 @@ def _mulmod_shoup_jit(a, w, ws, q):
 @jax.jit
 def _axis_apply(xm, W, WS, q4):
     """One per-axis transform step: xm [L, d_in, R] × W [L, d_out, d_in].
-    VPU path: Shoup products materialized then mod-tree-summed."""
+    Elementwise path: Shoup products materialized then mod-tree-summed."""
     prod = mulmod_shoup(xm[:, None, :, :], W[:, :, :, None], WS[:, :, :, None], q4)
     return _modsum(prod, axis=2, q=q4)  # [L, d_out, R]
 
 
 @jax.jit
 def _axis_apply_mxu(xm, Wp, q, r16, r16s, r32, r32s):
-    """MXU path: digit-plane bf16 einsums (exact for d_in ≤ 256; see
-    backend/ntt_mxu.py) — contracts on the systolic array without
+    """Matmul path: digit-plane bf16 einsums (exact for d_in ≤ 256; see
+    backend/ntt_mxu.py) — contracts on the tensor cores without
     materializing the [d_out, d_in, R] product tensor.
 
     xm [L, d_in, R] u32; Wp [L, 4, 4, d_out, d_in] scaled bf16 planes
     (V_{d,f} of 2^(8d)·W mod q — ntt_mxu.scaled_planes); consts [L,1,1].
 
-    Round-5 (same tricks as the Pallas kernels, bit-identical canonical
-    outputs): adjacent input planes PAIR along the contraction when
-    d_in ≤ 128 (8 einsums of 2K, exact since 255·255·2K < 2^24), and for
-    q < 2^30 the plane sums assemble BYTE-SERIALLY into value = w0 +
-    2^16·m (the scaled weights' top byte < 64 bounds every intermediate)
-    so one Shoup multiply + two conditional subtracts replace the
-    carry-chain + reduce + Shoup + cond-sub recombination — the dominant
-    compare/select fusions of the example workloads' profile
-    (EXAMPLES_r05.json)."""
+    Bit-identical canonical outputs: adjacent input planes PAIR along the
+    contraction when d_in ≤ 128 (8 einsums of 2K, exact since
+    255·255·2K < 2^24), and for q < 2^30 the plane sums assemble
+    BYTE-SERIALLY into value = w0 + 2^16·m (the scaled weights' top byte
+    < 64 bounds every intermediate; ntt_mxu._recombine_planes derives the
+    bound) so one Shoup multiply + a conditional subtract replace the
+    carry-chain + reduce + Shoup + cond-sub recombination."""
     K = xm.shape[1]
     fast = isinstance(q, np.ndarray) and bool((q < (1 << 30)).all()) \
         and K <= 256
@@ -413,7 +412,7 @@ class XlaBackend:
             if MAC_COUNTER is not None:
                 # exact base-MAC ledger for the profiling harness
                 # (scripts/profile_examples.py): L·d_out·d_in·R base MACs
-                # per group application; the MXU digit-plane path issues 16
+                # per group application; the digit-plane matmul path issues 16
                 # bf16 dots of this base count
                 MAC_COUNTER.append((L, d_in, d_out, int(xm.shape[-1])))
             if mxu and d_in <= 256:

@@ -10,7 +10,7 @@ Every basis change, subring embedding, and trace is then *per-axis*:
   g chosen primitive mod p² so the choice is consistent across exponents), and
   (−1)^s·5^j for 2-powers. With these orders, restriction (Z/p^a)* → (Z/p^b)*
   is index-truncation, so subring embed = broadcast and twace = weighted fiber
-  sum along *reshaped* axes — pure data movement on TPU, no gathers.
+  sum along *reshaped* axes — pure data movement on the device, no gathers.
 - twace is the integral "tweaked trace" Tw(x) = (m̂/m̂')·Tr(x·g'/g) with
   g = ∏_{odd p|m}(1−ζ_p) (the λ∘λ normalization Lol uses; plain normalized
   trace is not integral). Its per-axis matrices have exact closed forms via
@@ -18,8 +18,8 @@ Every basis change, subring embedding, and trace is then *per-axis*:
   as exact rationals and verify integrality.
 
 Reference counterpart: Lol's `Cyc`/`Factored` tensor algebra and lol-cpp's
-basis transforms (consumed surface in SURVEY.md §2.3). The design here is
-TPU-native: transforms are MXU-shaped matmul chains, not C++ loops.
+basis transforms (consumed surface in SURVEY.md §2.3). Here transforms are
+matmul chains the accelerator runs on its tensor cores, not C++ loops.
 """
 
 from __future__ import annotations

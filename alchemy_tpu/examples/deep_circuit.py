@@ -15,6 +15,9 @@ depth-D chain needs D+2 limbs.
 
 from __future__ import annotations
 
+import time
+from functools import partial
+
 import numpy as np
 
 from alchemy_tpu.she import fast
@@ -49,10 +52,48 @@ def save_state(path: str, *, log_n: int, depth: int, level: int, ct,
              msg=np.asarray(msg), impl=str(impl or ""), ks=ks)
 
 
+def compile_levels(p: FastParams, levels, ks: str) -> None:
+    """Compile the hint, mul+relin and rescale programs of every level in
+    `levels` before the chain runs, side by side in threads. Each level has
+    its own limb count and so its own programs; compiling them together
+    spreads the work over the host's cores, and the calls in the chain then
+    find them compiled."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import jax
+    import jax.numpy as jnp
+
+    from alchemy_tpu.she import hybrid
+
+    n = p.n
+    jobs = []
+    for level in levels:
+        cur = FastParams(n=n, qs=p.qs[:len(p.qs) - level], zp=p.zp,
+                         impl=p.impl)
+        L = len(cur.qs)
+        ct = jax.ShapeDtypeStruct((2, L, n), jnp.uint32)
+        if ks == "hybrid":
+            hk = hybrid.HybridKS.make(cur)
+            T = len(hk.pe.qs)
+            h = jax.ShapeDtypeStruct((len(hk.groups), T, n), jnp.uint32)
+            s = jax.ShapeDtypeStruct((T, n), jnp.uint32)
+            jobs.append(partial(hybrid._hybrid_hint_rows.lower, hk, s, h, h))
+            jobs.append(partial(hybrid.mul_relin_hybrid.lower, hk, ct, ct, h, h))
+        else:
+            h = jax.ShapeDtypeStruct((L, L, n), jnp.uint32)
+            s = jax.ShapeDtypeStruct((L, n), jnp.uint32)
+            jobs.append(partial(fast._relin_hint_rows.lower, cur, s, h, h))
+            jobs.append(partial(fast.mul_relin.lower, cur, ct, ct, (h, h),
+                                (h, h)))
+        jobs.append(partial(fast.rescale.lower, cur, ct, 1))
+    with ThreadPoolExecutor() as ex:
+        list(ex.map(lambda lower: lower().compile(), jobs))
+
+
 def run(log_n: int = 9, depth: int = 16, seed: int = 0, verbose: bool = True,
         impl: str | None = None, ks: str = "trivgad",
         stop_at_level: int | None = None, state_path: str | None = None,
-        resume: bool = False):
+        resume: bool = False, timings: dict | None = None):
     """Returns (ok, levels) — decrypt-correct after `depth` mul+relin+rescale
     levels. ks="hybrid" relinearizes with dnum-grouped hybrid key-switching
     (she/hybrid.py) — the cheaper choice at this workload's deep chains.
@@ -61,7 +102,13 @@ def run(log_n: int = 9, depth: int = 16, seed: int = 0, verbose: bool = True,
     checkpoints mid-chain and returns (None, level) WITHOUT finishing;
     `resume=True` loads the state from `state_path` in a fresh process
     (reseeding encryption/hint randomness from OS entropy) and completes
-    the remaining levels; the decrypt oracle then checks the FULL chain."""
+    the remaining levels; the decrypt oracle then checks the FULL chain.
+
+    Every level's programs are compiled up front (`compile_levels`).
+    `timings`, when given, receives the seconds spent compiling
+    ("compile_s"), generating the per-level hints ("hints_s") and
+    evaluating the levels ("levels_s"), each ending in block_until_ready."""
+    import jax
     import jax.numpy as jnp
 
     from alchemy_tpu.she.keys import gaussian_coeffs
@@ -72,8 +119,7 @@ def run(log_n: int = 9, depth: int = 16, seed: int = 0, verbose: bool = True,
         level0 = int(st["level"])
         impl = str(st["impl"]) or None
         ks = str(st["ks"])
-        kwargs = {} if impl is None else {"impl": impl}
-        p = FastParams.make(log_n, depth + 2, zp=2, **kwargs)
+        p = FastParams.make(log_n, depth + 2, zp=2, impl=impl)
         s_int = st["s_int"]
         msg = st["msg"]
         ct = jnp.asarray(st["ct"])
@@ -81,10 +127,9 @@ def run(log_n: int = 9, depth: int = 16, seed: int = 0, verbose: bool = True,
         cur_p = FastParams(n=p.n, qs=p.qs[:len(p.qs) - level0], zp=p.zp,
                            impl=p.impl)
     else:
-        kwargs = {} if impl is None else {"impl": impl}
-        p = FastParams.make(log_n, depth + 2, zp=2, **kwargs)
+        p = FastParams.make(log_n, depth + 2, zp=2, impl=impl)
         if ks == "auto":
-            # measured crossover (BASELINE.md): hybrid wins from L ≳ 12
+            # hybrid does fewer limb transforms from L ≳ 12 (she/hybrid.py)
             ks = "hybrid" if len(p.qs) >= 12 else "trivgad"
         rng = np.random.default_rng(seed)
         s_int = gaussian_coeffs(rng, 1.0, p.n)
@@ -100,6 +145,13 @@ def run(log_n: int = 9, depth: int = 16, seed: int = 0, verbose: bool = True,
         ct = fast.encrypt(p, s, msg, rng)
         cur_p = p
 
+    t0 = time.perf_counter()
+    stop = depth if stop_at_level is None else min(depth, stop_at_level)
+    compile_levels(p, range(level0, stop), ks)
+    if timings is not None:
+        timings["compile_s"] = (timings.get("compile_s", 0.0)
+                                + time.perf_counter() - t0)
+
     for level in range(level0, depth):
         if stop_at_level is not None and level == stop_at_level:
             save_state(state_path, log_n=log_n, depth=depth, level=level,
@@ -107,18 +159,26 @@ def run(log_n: int = 9, depth: int = 16, seed: int = 0, verbose: bool = True,
             if verbose:
                 print(f"checkpointed at level {level} -> {state_path}")
             return None, level
+        t0 = time.perf_counter()
         if ks == "hybrid":
             from alchemy_tpu.she.hybrid import (
                 HybridKS, hybrid_relin_hint, mul_relin_hybrid)
 
             hk = HybridKS.make(cur_p)
-            hb, ha = hybrid_relin_hint(hk, s_int, rng)
-            ct = mul_relin_hybrid(hk, ct, ct, hb, ha)
+            hints = hybrid_relin_hint(hk, s_int, rng)
         else:
-            sl = key_at(cur_p)
-            hb, ha = fast.relin_hint(cur_p, sl, rng, shoup=True)
-            ct = fast.mul_relin(cur_p, ct, ct, hb, ha)
-        ct = fast.rescale(cur_p, ct, 1)
+            hints = fast.relin_hint(cur_p, key_at(cur_p), rng, shoup=True)
+        jax.block_until_ready(hints)
+        t1 = time.perf_counter()
+        if ks == "hybrid":
+            ct = mul_relin_hybrid(hk, ct, ct, *hints)
+        else:
+            ct = fast.mul_relin(cur_p, ct, ct, *hints)
+        ct = jax.block_until_ready(fast.rescale(cur_p, ct, 1))
+        if timings is not None:
+            timings["hints_s"] = timings.get("hints_s", 0.0) + t1 - t0
+            timings["levels_s"] = (timings.get("levels_s", 0.0)
+                                   + time.perf_counter() - t1)
         cur_p = FastParams(n=cur_p.n, qs=cur_p.qs[:-1], zp=cur_p.zp, impl=cur_p.impl)
         if verbose:
             print(f"level {level + 1}: limbs={len(cur_p.qs)}")
@@ -135,10 +195,9 @@ if __name__ == "__main__":
     import os
     import sys
 
-    import jax
+    from alchemy_tpu.utils.cache import setup_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/alchemy_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    setup_compile_cache()
     ok, _ = run(
         log_n=int(os.environ.get("DEEP_LOG_N", "13")),
         depth=int(os.environ.get("DEEP_DEPTH", "16")),

@@ -276,7 +276,9 @@ class JitCompiled:
         # ALCHEMY_AOT_CACHE=0 disables; any failure falls back silently.
         import os as _os
 
-        aot_dir = _os.environ.get("ALCHEMY_AOT_CACHE", "/tmp/alchemy_aot_cache")
+        from alchemy_tpu.utils.cache import AOT_CACHE_DIR
+
+        aot_dir = _os.environ.get("ALCHEMY_AOT_CACHE", AOT_CACHE_DIR)
         use_aot = aot_dir not in ("", "0") and mesh is None
         aot_path = None
         if use_aot:

@@ -59,7 +59,7 @@ def root_of_unity(m: int, q: int) -> int:
     """A fixed primitive m-th root of unity mod prime q (requires m | q-1).
 
     Deterministic: derived from the smallest primitive root of q, so every
-    backend (golden, jnp, pallas) builds identical transform matrices.
+    backend (golden, jnp, native) builds identical transform matrices.
     """
     if m == 1:
         return 1

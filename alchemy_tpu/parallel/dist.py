@@ -194,10 +194,9 @@ def _a2a_ring(x, axis_split, axis_concat, n_shards):
     distance t: device d ships chunk index (d+t)%C to device (d+t)%C, which
     lands it at source-block position (r-t)%C of the output. Total bytes
     moved equal the all_to_all's (C-1)/C of the block; C-1 neighbor-style
-    rounds instead of one global exchange. Measured no faster than a2a on
-    any reachable transport (STRATEGY_r04.json) — kept as an explicit
-    opt-in (strategy="ring") for transports where staged neighbor exchange
-    might win."""
+    rounds instead of one global exchange. Kept as an explicit opt-in
+    (strategy="ring") for transports where staged neighbor exchange might
+    win; pick_dist_strategy never chooses it."""
     C = n_shards
     d = jax.lax.axis_index("coeff")
     chunk = x.shape[axis_split] // C
@@ -224,19 +223,28 @@ DIST_STRATEGIES = {"a2a": _a2a, "ring": _a2a_ring}
 
 
 def pick_dist_strategy(mesh: Mesh) -> str:
-    """Default transpose strategy: a2a, everywhere — measured, not assumed.
-
-    The staged ring was hypothesized to pipeline better across process/DCN
-    boundaries; the data says otherwise on every transport this repo can
-    reach: single-process virtual mesh ring is slower at ≥4 coeff shards
-    (SCALING_r03.json: 47.1 ms a2a vs 48.8 ring at 4 shards, 68.4 vs 80.9
-    at 8) and across a REAL 2-process gloo boundary it is a wash-to-slower
-    (STRATEGY_r04.json via scripts/bench_strategy.py: ring/a2a = 0.98 at
-    2^12, 1.07 at 2^14). The ring variant stays available explicitly
-    (strategy="ring", bit-identical) for transports where staged neighbor
-    exchange might win; re-run scripts/bench_strategy.py before preferring
-    it."""
+    """Default transpose strategy: a2a, everywhere. The cards of one host
+    are joined all to all, so every card reaches every other at the same
+    rate and a staged ring has no slower link to route around. The ring
+    variant stays available explicitly (strategy="ring", bit-identical)."""
     return "a2a"
+
+
+def to_dist_layout(coeffs, cfg: "DistConfig"):
+    """Coefficient-index order → the (j2, j1) storage order of the
+    distributed NTT (host numpy, any leading axes)."""
+    x = np.asarray(coeffs)
+    lead = x.shape[:-1]
+    return np.swapaxes(x.reshape(*lead, cfg.n1, cfg.n2), -1, -2).reshape(
+        *lead, cfg.p.n)
+
+
+def from_dist_layout(stored, cfg: "DistConfig"):
+    """Inverse of to_dist_layout."""
+    x = np.asarray(stored)
+    lead = x.shape[:-1]
+    return np.swapaxes(x.reshape(*lead, cfg.n2, cfg.n1), -1, -2).reshape(
+        *lead, cfg.p.n)
 
 
 def _stages_L(x, stages, q, fn):
@@ -258,8 +266,7 @@ def _overlap_chunks(strategy: str, n_shards: int | None, dim: int) -> int:
     missing #2). Worth it when the per-device payload is large relative to
     the per-collective launch latency (big batches / rings); at tiny
     payloads the extra launches dominate — hence default OFF and opt-in via
-    ALCHEMY_DIST_OVERLAP (the batch-threshold analysis lives in
-    SCALING_r05.json)."""
+    ALCHEMY_DIST_OVERLAP."""
     import os
 
     nc = int(os.environ.get("ALCHEMY_DIST_OVERLAP", "1"))

@@ -18,7 +18,7 @@ def init_multihost(coordinator_address: str | None = None,
     """Initialize jax.distributed (no-op when single-process). Returns the
     global device count.
 
-    On TPU pods the collective transport is XLA's own (ICI/DCN); on the CPU
+    On GPUs the collective transport is XLA's own (NCCL); on the CPU
     backend cross-process collectives need an explicit implementation
     (`cpu_collectives="gloo"` — how tests/test_multihost.py runs the same
     shard_map programs across two OS processes)."""

@@ -1,10 +1,10 @@
-"""Fused, jittable BGV ops on raw arrays — the TPU hot path.
+"""Fused, jittable BGV ops on raw arrays — the accelerator hot path.
 
 Operates on power-of-2 rings (backend/ntt.py) with ciphertexts as
 `uint32[ncomp, L, n]` in the NTT (evaluation) domain. This is the flagship
 compute step for the benchmark configs (BASELINE.json configs[3]-[4]): fused
 ciphertext multiply + gadget re-linearization + rescale, compiled as one XLA
-program (`jax.jit`), batchable with `jax.vmap`, shardable with shard_map
+program (`jax.jit`), batchable over leading axes, shardable with shard_map
 (parallel/).
 
 The CRT-gadget digit decomposition needs one inverse NTT (to coefficients)
@@ -15,7 +15,6 @@ dataflow. Digits are single-limb residues reduced into every limb exactly
 
 from __future__ import annotations
 
-import os as _os
 from dataclasses import dataclass
 from functools import lru_cache, partial
 
@@ -26,13 +25,6 @@ import numpy as np
 from alchemy_tpu.backend.ntt import intt_negacyclic, ntt_negacyclic
 from alchemy_tpu.backend.ntt_mxu import intt_mxu, ntt_mxu, ntt_mxu_bcast
 from alchemy_tpu.backend.ntt_mxu3 import intt_mxu3, ntt_mxu3, ntt_mxu3_bcast
-
-#: default NTT implementation for the fused fast path: "mxu" (4-step bf16
-#: digit-plane matmuls on the systolic array — DESIGN.md MXU section) or
-#: "vpu" (radix-2 butterflies; the right choice on CPU). Both are exact;
-#: slot orders differ but are internally consistent, so all fused ops and
-#: decrypt agree within one FastParams.
-DEFAULT_NTT_IMPL = _os.environ.get("ALCHEMY_NTT_IMPL", "mxu")
 from alchemy_tpu.backend.xla import (
     _cond_sub,
     _split,
@@ -43,6 +35,19 @@ from alchemy_tpu.backend.xla import (
 from alchemy_tpu.nt.primes import find_ntt_prime
 from alchemy_tpu.she.keys import gaussian_coeffs, uniform_residues
 
+#: the exact NTT formulations of the fast path: "vpu" (radix-2 butterflies,
+#: backend/ntt.py), "mxu"/"mxu8" (2-factor digit-plane matmuls in bf16 or
+#: int8, backend/ntt_mxu.py) and "mxu3" (3-factor 128·128·r digit-plane
+#: matmuls, backend/ntt_mxu3.py). Slot orders differ but are internally
+#: consistent, so all fused ops and decrypt agree within one FastParams, and
+#: coefficient-domain results are bit-identical across formulations.
+IMPLS = ("vpu", "mxu", "mxu8", "mxu3")
+
+#: the formulation when none is given, on every platform and ring size: the
+#: butterflies were the fastest mul+relin on the H100 at 2^14 and 2^16 (L=8,
+#: batch 16) and compile without GEMM autotuning
+DEFAULT_IMPL = "vpu"
+
 
 @dataclass(frozen=True)
 class FastParams:
@@ -51,11 +56,18 @@ class FastParams:
     n: int                    # φ(m') — power of two
     qs: tuple[int, ...]       # RNS chain (all ≡ 1 mod 2n)
     zp: int = 2               # plaintext modulus
-    impl: str = DEFAULT_NTT_IMPL  # "mxu" | "vpu"
+    impl: str | None = None   # one of IMPLS; None: DEFAULT_IMPL
+
+    def __post_init__(self):
+        if self.impl is None:
+            object.__setattr__(self, "impl", DEFAULT_IMPL)
+        elif self.impl not in IMPLS:
+            raise ValueError(f"unknown fast-path formulation {self.impl!r}; "
+                             f"expected one of {IMPLS}")
 
     @staticmethod
     def make(log_n: int, nlimb: int, zp: int = 2, bits: int = 30,
-             impl: str = DEFAULT_NTT_IMPL) -> "FastParams":
+             impl: str | None = None) -> "FastParams":
         n = 1 << log_n
 
         qs: list[int] = []
@@ -64,38 +76,10 @@ class FastParams:
         return FastParams(n=n, qs=tuple(qs), zp=zp, impl=impl)
 
 
-def _pallas_ntt_ok(p) -> bool:
-    """Standalone transforms default to the jnp MXU formulation even at
-    impl='pallas': measured on device (jitted, 2^15×8) the XLA path runs
-    133 µs vs 193 µs for the per-limb grid kernel — XLA batches all limbs
-    into wide dots, while the kernel's one-limb-per-step dots are
-    latency-bound. The grid kernels still carry the fused joint P-rescale
-    (rescale_pallas.py), where staying VMEM-resident beats limb width.
-    ALCHEMY_PALLAS_NTT=1 re-enables the kernel dispatch for experiments."""
-    import os
-
-    if os.environ.get("ALCHEMY_PALLAS_NTT", "0") != "1":
-        return False
-    return p.n % 16384 == 0 and p.n // 16384 in (1, 2, 4)
-
-
 def _ntt_p(p, x):
     if p.impl == "vpu":
         return ntt_negacyclic(x, p.n, p.qs)
-    if p.impl == "pallas":
-        # the fused Mosaic kernels use the 3-factor slot order; every
-        # transform in this FastParams must agree with it. Standalone
-        # transforms run as the fused per-limb kernel when the tiling
-        # holds (bit-identical to the jnp ntt_mxu3 path).
-        if _pallas_ntt_ok(p):
-            from alchemy_tpu.backend.pallas.rescale_pallas import (
-                ntt3_grid_pallas,
-            )
-
-            lead = x.shape[:-2]
-            out = ntt3_grid_pallas(
-                p.n, p.qs, x.reshape(-1, x.shape[-2], p.n))
-            return out.reshape(*lead, x.shape[-2], p.n)
+    if p.impl == "mxu3":
         return ntt_mxu3(x, p.n, p.qs)
     return ntt_mxu(x, p.n, p.qs, p.impl == "mxu8")
 
@@ -103,16 +87,7 @@ def _ntt_p(p, x):
 def _intt_p(p, x):
     if p.impl == "vpu":
         return intt_negacyclic(x, p.n, p.qs)
-    if p.impl == "pallas":
-        if _pallas_ntt_ok(p):
-            from alchemy_tpu.backend.pallas.rescale_pallas import (
-                intt3_grid_pallas,
-            )
-
-            lead = x.shape[:-2]
-            out = intt3_grid_pallas(
-                p.n, p.qs, x.reshape(-1, x.shape[-2], p.n))
-            return out.reshape(*lead, x.shape[-2], p.n)
+    if p.impl == "mxu3":
         return intt_mxu3(x, p.n, p.qs)
     return intt_mxu(x, p.n, p.qs, p.impl == "mxu8")
 
@@ -153,34 +128,36 @@ def keygen(p: FastParams, rng: np.random.Generator, variance: float = 1.0):
 def shoup_precompute(arr, qs: tuple[int, ...]) -> tuple:
     """Host-side Shoup companions for runtime-constant device data (hints):
     returns (values, companions) for use with mulmod_shoup. `arr` has the
-    limb axis second-to-last."""
+    limb axis second-to-last. Exact in uint64: v·2^32 < 2^64 for v < 2^32."""
     host = np.asarray(arr).astype(np.uint64)
     q = np.asarray(qs, dtype=np.uint64)[:, None]
-    comp = ((host.astype(object) << 32) // q).astype(np.uint64).astype(np.uint32)
+    comp = ((host << np.uint64(32)) // q).astype(np.uint32)
     return jnp.asarray(np.asarray(arr)), jnp.asarray(comp)
 
 
-def prep_pallas_hints(p: FastParams, hint_b, hint_a):
-    """Reshape hint arrays (raw or Shoup pairs) to the Mosaic kernel's grid
-    layout [L, L, A, B·r] OUTSIDE the hot jitted call.
+@lru_cache(maxsize=None)
+def _crt_gadget(p: FastParams):
+    """CRT gadget g_i = Q_i·(Q_i^{-1} mod q_i) mod Q per row i, as its
+    residues and Shoup companions [L(i), L, 1] (host numpy)."""
+    Q = 1
+    for q in p.qs:
+        Q *= q
+    g = [Q // qi * pow(Q // qi % qi, -1, qi) % Q for qi in p.qs]
+    w = np.array([[gi % q for q in p.qs] for gi in g], dtype=np.uint32)
+    ws = np.array([[shoup_const(gi % q, q) for q in p.qs] for gi in g],
+                  dtype=np.uint32)
+    return w[..., None], ws[..., None]
 
-    Hints crossing the jit boundary in their [L, L, n] shape pay a tiled
-    relayout copy INSIDE the compiled program on every call (~34 MB ≈
-    42 µs/call at 2^15/L=8, measured in the optimized HLO); arrays already
-    shaped to the 4-D grid take the tiled device layout at the boundary
-    and the per-call copies vanish. The pallas and jnp paths both accept
-    either shape, bit-identically."""
-    from alchemy_tpu.backend.pallas.mul_relin_pallas import _pallas3_tables
 
-    t = _pallas3_tables(p.n, p.qs)
-    L, A, Br = len(p.qs), t["A"], t["B"] * t["r"]
-
-    def f(h):
-        if isinstance(h, (tuple, list)):
-            return tuple(jnp.asarray(x).reshape(L, L, A, Br) for x in h)
-        return jnp.asarray(h).reshape(L, L, A, Br)
-
-    return f(hint_b), f(hint_a)
+@partial(jax.jit, static_argnums=0)
+def _relin_hint_rows(p: FastParams, s_ntt, a_res, e_res):
+    """Rows B_i = g_i·s² + e_i − A_i·s, A_i = NTT(a_i): [L, L, n] each."""
+    s2 = mulmod(s_ntt, s_ntt, p.qs)
+    g, gs = _crt_gadget(p)
+    a = _ntt_p(p, a_res)
+    gs2 = mulmod_shoup(s2, g, gs, _fast_consts(p)["q"])
+    b = _sub(_add(gs2, _ntt_p(p, e_res), p), mulmod(a, s_ntt, p.qs), p)
+    return b, a
 
 
 def relin_hint(p: FastParams, s_ntt, rng: np.random.Generator, variance: float = 1.0,
@@ -188,30 +165,15 @@ def relin_hint(p: FastParams, s_ntt, rng: np.random.Generator, variance: float =
     """CRT-gadget hint for s² under s: returns (B, A) each [L, L, n] in the
     NTT domain; row i satisfies B_i + A_i·s = g_i·s² + zp·e_i (mod Q).
     With shoup=True, each of B and A is a (values, companions) pair for the
-    Shoup fast path in mul_relin."""
-    L, n = len(p.qs), p.n
-    Q = 1
-    for q in p.qs:
-        Q *= q
-    s2 = mulmod(s_ntt, s_ntt, p.qs)
-    Bs, As = [], []
-    for i, qi in enumerate(p.qs):
-        Qi = Q // qi
-        g = Qi * pow(Qi % qi, -1, qi) % Q
-        a = jnp.asarray(uniform_residues(rng, p.qs, n).astype(np.uint32))
-        a_ntt = _ntt_p(p, a)
-        e = gaussian_coeffs(rng, variance, n)
-        e_res = jnp.asarray(np.stack([(e * p.zp) % q for q in p.qs]).astype(np.uint32))
-        e_ntt = _ntt_p(p, e_res)
-        g_limbs = np.array([g % q for q in p.qs], dtype=np.uint32)[:, None]
-        g_s = np.array(
-            [shoup_const(g % q, q) for q in p.qs], dtype=np.uint32
-        )[:, None]
-        gs2 = mulmod_shoup(s2, jnp.asarray(g_limbs), jnp.asarray(g_s), _fast_consts(p)["q"])
-        b = _sub(_add(gs2, e_ntt, p), mulmod(a_ntt, s_ntt, p.qs), p)
-        Bs.append(b)
-        As.append(a_ntt)
-    B, A = jnp.stack(Bs), jnp.stack(As)
+    Shoup fast path in mul_relin. Sampling runs on the host, row by row;
+    the arithmetic is one jitted program."""
+    a_res, e_res = [], []
+    for _ in p.qs:
+        a_res.append(uniform_residues(rng, p.qs, p.n))
+        e = gaussian_coeffs(rng, variance, p.n)
+        e_res.append(np.stack([(e * p.zp) % q for q in p.qs]))
+    B, A = _relin_hint_rows(p, s_ntt, jnp.asarray(np.stack(a_res).astype(np.uint32)),
+                            jnp.asarray(np.stack(e_res).astype(np.uint32)))
     if shoup:
         return shoup_precompute(B, p.qs), shoup_precompute(A, p.qs)
     return B, A
@@ -307,46 +269,22 @@ def _sub(a, b, p: FastParams):
     return jnp.where(a >= b, a - b, a + q - b)
 
 
+@partial(jax.jit, static_argnums=0)
 def mul_relin(p: FastParams, ct_a, ct_b, hint_b, hint_a):
     """Fused BGV multiply + relinearize: [..., 2, L, n] × [..., 2, L, n] →
     [..., 2, L, n] (leading batch dims supported; vmap-free batching).
 
     Inputs/outputs in the NTT domain at the full chain. Hints are either raw
     values [L, L, n] (general mulmod applied) or Shoup-precomputed pairs
-    (values, companions) from `relin_hint(..., shoup=True)` — the fast path
-    for BOTH formulations (the Mosaic kernel streams the companions next to
-    the values and drops its hint products to Shoup multiplies). With
-    impl="pallas" (and n % 16384 == 0) the whole op runs as the fused
-    VMEM-resident Mosaic kernel (backend/pallas/mul_relin_pallas.py),
-    bit-identical to the jnp path for either hint layout.
+    (values, companions) from `relin_hint(..., shoup=True)`, which drop the
+    hint products to Shoup multiplies.
     """
-    if p.impl == "pallas" and ct_a.ndim in (3, 4) and p.n % 16384 == 0 \
-            and p.n // 16384 in (1, 2, 4):
-        from alchemy_tpu.backend.pallas.mul_relin_pallas import mul_relin_pallas
-
-        # Shoup pairs stream 2x hint HBM but drop the hint products from
-        # the general modmul to the Shoup multiply — the kernel's dominant
-        # VPU cost (see _digit_relin_kernel); raw hints remain supported
-        return mul_relin_pallas(p, ct_a, ct_b, hint_b, hint_a)
-    return _mul_relin_jnp(p, ct_a, ct_b, hint_b, hint_a)
-
-
-@partial(jax.jit, static_argnums=0)
-def _mul_relin_jnp(p: FastParams, ct_a, ct_b, hint_b, hint_a):
     qs = p.qs
     L = len(qs)
-
-    def _flat(h):
-        # accept kernel-grid-shaped hints (prep_pallas_hints) transparently
-        if isinstance(h, (tuple, list)):
-            return tuple(x.reshape(L, L, p.n) for x in h)
-        return h.reshape(L, L, p.n)
-
-    hint_b, hint_a = _flat(hint_b), _flat(hint_a)
     a0, a1 = ct_a[..., 0, :, :], ct_a[..., 1, :, :]
     b0, b1 = ct_b[..., 0, :, :], ct_b[..., 1, :, :]
-    # Karatsuba: 3 general mulmods instead of 4 (integer multiplies are the
-    # expensive VPU op on TPU; the extra adds/subs are cheap)
+    # Karatsuba: 3 general mulmods instead of 4 (each emulated 32×32→64
+    # product costs four 16-bit multiplies; the extra adds/subs are cheap)
     c0 = mulmod(a0, b0, qs)
     c2 = mulmod(a1, b1, qs)
     cross = mulmod(_add(a0, a1, p), _add(b0, b1, p), qs)
@@ -354,7 +292,7 @@ def _mul_relin_jnp(p: FastParams, ct_a, ct_b, hint_b, hint_a):
     # CRT-gadget digits of c2: coefficients per limb, re-reduced to all limbs
     c2_coeff = _intt_p(p, c2)
     consts = _fast_consts(p)
-    if p.impl in ("mxu", "mxu8", "pallas"):
+    if p.impl != "vpu":
         # the digit-plane matmul computes Σ_b x_b·W[a,b] mod q exactly for
         # ANY uint32 input (planes are ≤ 255 regardless), so the per-limb
         # residues go into the NTT unreduced — the mod-q_j reduction of each
@@ -362,7 +300,7 @@ def _mul_relin_jnp(p: FastParams, ct_a, ct_b, hint_b, hint_a):
         # fan-out across target limbs never materializes: the broadcast NTT
         # contracts the [..., Ldig, n] rows against every limb's matrices at
         # once (leading batch dims supported)
-        if p.impl == "pallas":
+        if p.impl == "mxu3":
             dig_ntt = ntt_mxu3_bcast(c2_coeff, p.n, p.qs)  # [..., Ldig, L, n]
         else:
             dig_ntt = ntt_mxu_bcast(c2_coeff, p.n, p.qs, p.impl == "mxu8")
@@ -386,51 +324,59 @@ def _mul_relin_jnp(p: FastParams, ct_a, ct_b, hint_b, hint_a):
     return jnp.stack([out0, out1], axis=-3)
 
 
+@lru_cache(maxsize=None)
+def _rescale_consts(qs: tuple[int, ...]):
+    """Constants for dropping the last limb q_k of `qs`, one row [Lk, 1] per
+    kept limb q_j: q_j, 2^16 mod q_j, q_k mod q_j and q_k^{-1} mod q_j, the
+    last three with Shoup companions (host numpy)."""
+    qk, keep = qs[-1], qs[:-1]
+
+    def col(vals):
+        return np.array(vals, dtype=np.uint32)[:, None]
+
+    def with_shoup(name, vals):
+        return {name: col(vals),
+                name + "s": col([shoup_const(v, q) for v, q in zip(vals, keep)])}
+
+    return {"q": col(keep),
+            **with_shoup("r16", [(1 << 16) % q for q in keep]),
+            **with_shoup("qk", [qk % q for q in keep]),
+            **with_shoup("inv", [pow(qk, -1, q) for q in keep])}
+
+
 @partial(jax.jit, static_argnums=(0, 2))
 def rescale(p: FastParams, ct, k_drop: int = 1):
     """Exact BGV rescale dropping the last k_drop limbs (NTT-domain in/out).
 
     Plaintext-scale bookkeeping is the caller's job (the chain primes are
-    ≡ 1 mod zp in the benchmark configs, so the scale stays 1)."""
+    ≡ 1 mod zp in the benchmark configs, so the scale stays 1). Each drop is
+    vectorized over the kept limbs (per-limb constants as [Lk, 1] columns)."""
     out = ct
-    qs = list(p.qs)
+    qs = tuple(p.qs)
+    pz = p.zp
+    mask = np.uint32(pz - 1)
     for _ in range(k_drop):
-        n = p.n
-        qs_t = tuple(qs)
-        coeff = _intt_p(FastParams(n=p.n, qs=qs_t, zp=p.zp, impl=p.impl), out)  # [ncomp, L, n]
+        coeff = _intt_p(FastParams(n=p.n, qs=qs, zp=pz, impl=p.impl), out)
         qk = qs[-1]
-        new_qs = tuple(qs[:-1])
-        r = coeff[..., -1, :]
-        half = np.uint32(qk // 2)
-        is_neg = r > half
-        pz = p.zp
-        mask = np.uint32(pz - 1)
+        c = _rescale_consts(qs)
+        q = c["q"]
+        r = coeff[..., -1:, :]                       # [..., 1, n]
+        is_neg = r > np.uint32(qk // 2)
         r_mod_p = r & mask
         qk_mod_p = np.uint32(qk % pz)
         rc_mod_p = jnp.where(is_neg, (r_mod_p + pz - (qk_mod_p & mask)) & mask, r_mod_p)
         inv_qk_p = np.uint32(pow(qk, -1, pz))
         t = (((pz - rc_mod_p) & mask) * inv_qk_p) & mask  # (−r_c)·q_k^{-1} mod p
         t_neg = t > pz // 2
-        rows = []
-        for j, qj in enumerate(new_qs):
-            qj32 = np.uint32(qj)
-            r16 = np.uint32((1 << 16) % qj)
-            r16s = np.uint32(shoup_const((1 << 16) % qj, qj))
-            r_red = _reduce_u32(r, qj32, r16, r16s)
-            qk_mod = np.uint32(qk % qj)
-            rc = jnp.where(is_neg, jnp.where(r_red >= qk_mod, r_red - qk_mod,
-                                             r_red + qj32 - qk_mod), r_red)
-            tc = jnp.where(t_neg, qj32 - (np.uint32(pz) - t), t)
-            qkt = mulmod_shoup(tc, qk_mod, np.uint32(shoup_const(qk % qj, qj)), qj32)
-            delta = _cond_sub(rc + qkt, qj32)
-            cj = coeff[..., j, :]
-            diff = jnp.where(cj >= delta, cj - delta, cj + qj32 - delta)
-            inv_qk = pow(qk, -1, qj)
-            rows.append(
-                mulmod_shoup(diff, np.uint32(inv_qk), np.uint32(shoup_const(inv_qk, qj)), qj32)
-            )
-        out = jnp.stack(rows, axis=-2)
-        qs = list(new_qs)
-        p = FastParams(n=p.n, qs=tuple(qs), zp=p.zp, impl=p.impl)
-        out = _ntt_p(p, out)
+        r_red = _reduce_u32(r, q, c["r16"], c["r16s"])     # [..., Lk, n]
+        qk_mod = c["qk"]
+        rc = jnp.where(is_neg, jnp.where(r_red >= qk_mod, r_red - qk_mod,
+                                         r_red + q - qk_mod), r_red)
+        tc = jnp.where(t_neg, q - (np.uint32(pz) - t), t)
+        delta = _cond_sub(rc + mulmod_shoup(tc, qk_mod, c["qks"], q), q)
+        cj = coeff[..., :-1, :]
+        diff = jnp.where(cj >= delta, cj - delta, cj + q - delta)
+        out = mulmod_shoup(diff, c["inv"], c["invs"], q)
+        qs = qs[:-1]
+        out = _ntt_p(FastParams(n=p.n, qs=qs, zp=pz, impl=p.impl), out)
     return out

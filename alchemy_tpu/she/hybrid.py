@@ -65,8 +65,9 @@ def _smod(a, w_int: int, q_int: int):
                         np.uint32(q_int))
 
 
-def _submod_q(a, b, q_int: int):
-    q = np.uint32(q_int)
+def _submod_q(a, b, q):
+    """a − b mod q for a, b < q; q an int or a uint32 array."""
+    q = np.asarray(q, dtype=np.uint32)
     return jnp.where(a >= b, a - b, a + q - b)
 
 
@@ -138,26 +139,7 @@ def rescale_joint(p: FastParams, ct, k_drop: int):
     deviation, exactness and noise bounds identical).
 
     ct: [..., T, n] NTT domain → [..., T-k_drop, n]. Requires zp a power of
-    two (all reference configs) and chain primes ≡ 1 mod zp (NTT primes).
-
-    With impl="pallas" (Mosaic tiling constraints met) the transforms run
-    as fused VMEM-resident kernels (backend/pallas/rescale_pallas.py),
-    bit-identical to this jnp formulation."""
-    import os
-
-    if (p.impl == "pallas" and p.n % 16384 == 0
-            and p.n // 16384 in (1, 2, 4)
-            and os.environ.get("ALCHEMY_PALLAS_RESCALE", "1") != "0"):
-        from alchemy_tpu.backend.pallas.rescale_pallas import (
-            rescale_joint_pallas,
-        )
-
-        return rescale_joint_pallas(p, ct, k_drop)
-    return _rescale_joint_jnp(p, ct, k_drop)
-
-
-@partial(jax.jit, static_argnums=(0, 2))
-def _rescale_joint_jnp(p: FastParams, ct, k_drop: int):
+    two (all reference configs) and chain primes ≡ 1 mod zp (NTT primes)."""
     qs = p.qs
     keep, drop = qs[:-k_drop], qs[-k_drop:]
     pz = p.zp
@@ -196,18 +178,22 @@ def _rescale_joint_jnp(p: FastParams, ct, k_drop: int):
     t = (((np.uint32(pz) - vz) & mask) * np.uint32(inv_P_zp)) & mask
     t_neg = t > pz // 2
 
-    rows = []
-    v_all = extend_digits(xs, drop, keep)  # [..., Lk, n]
-    for j, qj in enumerate(keep):
-        q32 = np.uint32(qj)
-        vq = v_all[..., j, :]
-        vq = jnp.where(is_neg, _submod_q(vq, np.uint32(P % qj), qj), vq)
-        tc = jnp.where(t_neg, q32 - (np.uint32(pz) - t), t)
-        delta = _cond_sub(vq + _smod(tc, P, qj), q32)
-        cj = coeff[..., j, :]
-        diff = _submod_q(cj, delta, qj)
-        rows.append(_smod(diff, pow(P % qj, -1, qj), qj))
-    out = jnp.stack(rows, axis=-2)
+    # per kept limb q_j, vectorized over [Lk, 1] constant columns
+    def col(vals):
+        return np.array(vals, dtype=np.uint32)[:, None]
+
+    q = col(keep)
+    p_mod = col([P % qj for qj in keep])
+    p_mod_s = col([shoup_const(P % qj, qj) for qj in keep])
+    inv_p = col([pow(P % qj, -1, qj) for qj in keep])
+    inv_p_s = col([shoup_const(pow(P % qj, -1, qj), qj) for qj in keep])
+    is_neg, t, t_neg = is_neg[..., None, :], t[..., None, :], t_neg[..., None, :]
+    vq = extend_digits(xs, drop, keep)                  # [..., Lk, n]
+    vq = jnp.where(is_neg, _submod_q(vq, p_mod, q), vq)
+    tc = jnp.where(t_neg, q - (np.uint32(pz) - t), t)
+    delta = _cond_sub(vq + mulmod_shoup(tc, p_mod, p_mod_s, q), q)
+    diff = _submod_q(coeff[..., :len(keep), :], delta, q)
+    out = mulmod_shoup(diff, inv_p, inv_p_s, q)
     return _ntt_p(FastParams(n=p.n, qs=keep, zp=p.zp, impl=p.impl), out)
 
 
@@ -292,67 +278,68 @@ def hybrid_keygen_hint(hk: HybridKS, rng: np.random.Generator,
 def hybrid_relin_hint(hk: HybridKS, s_coeffs: np.ndarray,
                       rng: np.random.Generator, hint_variance: float = 1.0):
     """Hybrid relinearization hint for a given secret key (centered integer
-    coefficients): (B, A) each [dnum, T, n], NTT domain, extended chain."""
+    coefficients): (B, A) each [dnum, T, n], NTT domain, extended chain.
+    Sampling runs on the host, group by group; the arithmetic is one
+    jitted program."""
     p, pe = hk.p, hk.pe
     n = p.n
     s = np.asarray(s_coeffs, dtype=np.int64)
-    s_e = _ntt_p(pe, jnp.asarray(np.stack([s % q for q in pe.qs]).astype(np.uint32)))
-    s2_e = mulmod(s_e, s_e, pe.qs)
+    a_res, e_res = [], []
+    for _ in hk.groups:
+        a_res.append(uniform_residues(rng, pe.qs, n))
+        e = gaussian_coeffs(rng, hint_variance, n)
+        e_res.append(np.stack([(e * p.zp) % q for q in pe.qs]))
+    s_res = np.stack([s % q for q in pe.qs]).astype(np.uint32)
+    return _hybrid_hint_rows(hk, jnp.asarray(s_res),
+                             jnp.asarray(np.stack(a_res).astype(np.uint32)),
+                             jnp.asarray(np.stack(e_res).astype(np.uint32)))
 
+
+@lru_cache(maxsize=None)
+def _hybrid_gadget(hk: HybridKS):
+    """ĝ_j scaled by P per group j, as residues and Shoup companions over
+    the extended chain, [dnum, T, 1] (host numpy)."""
+    p, pe = hk.p, hk.pe
     Q = 1
     for q in p.qs:
         Q *= q
     P = 1
     for g in hk.ps:
         P *= g
-    ce = _fast_consts(pe)
-    Bs, As = [], []
+    w, ws = [], []
     for grp in hk.groups:
         Qj = 1
         for g in grp:
             Qj *= g
         Qi = Q // Qj
         g_j = P * (Qi * pow(Qi % Qj, -1, Qj) % Q) % (Q * P)
-        gl = np.array([g_j % q for q in pe.qs], dtype=np.uint32)[:, None]
-        gl_s = np.array(
-            [shoup_const(g_j % q, q) for q in pe.qs], dtype=np.uint32
-        )[:, None]
-        a = _ntt_p(pe, jnp.asarray(uniform_residues(rng, pe.qs, n).astype(np.uint32)))
-        e = gaussian_coeffs(rng, hint_variance, n)
-        e_res = jnp.asarray(
-            np.stack([(e * p.zp) % q for q in pe.qs]).astype(np.uint32))
-        b = _sub(
-            _add(mulmod_shoup(s2_e, jnp.asarray(gl), jnp.asarray(gl_s), ce["q"]),
-                 _ntt_p(pe, e_res), pe),
-            mulmod(a, s_e, pe.qs), pe)
-        Bs.append(b)
-        As.append(a)
-    return jnp.stack(Bs), jnp.stack(As)
+        w.append([g_j % q for q in pe.qs])
+        ws.append([shoup_const(g_j % q, q) for q in pe.qs])
+    return (np.array(w, dtype=np.uint32)[..., None],
+            np.array(ws, dtype=np.uint32)[..., None])
+
+
+@partial(jax.jit, static_argnums=0)
+def _hybrid_hint_rows(hk: HybridKS, s_res, a_res, e_res):
+    """B_j = P·ĝ_j·s² + e_j − A_j·s, A_j = NTT(a_j) over the extended
+    chain: [dnum, T, n] each."""
+    pe = hk.pe
+    s_e = _ntt_p(pe, s_res)
+    s2_e = mulmod(s_e, s_e, pe.qs)
+    g, gs = _hybrid_gadget(hk)
+    a = _ntt_p(pe, a_res)
+    gs2 = mulmod_shoup(s2_e, g, gs, _fast_consts(pe)["q"])
+    b = _sub(_add(gs2, _ntt_p(pe, e_res), pe), mulmod(a, s_e, pe.qs), pe)
+    return b, a
 
 
 @partial(jax.jit, static_argnums=0)
 def mul_relin_hybrid(hk: HybridKS, ct_a, ct_b, hint_b, hint_a):
     """Fused BGV multiply + hybrid relinearization: [..., 2, L, n] cts in
     the NTT domain at the base chain → same. Bit-exact semantics (decrypt
-    equals the plaintext product — the §4 differential oracle). With
-    impl="pallas" (and the Mosaic tiling constraints met) the tensor
-    product and the digit-NTT+hint stage run as fused VMEM-resident
-    kernels, bit-identical to the jnp formulation."""
-    p = hk.p
-    if (p.impl == "pallas" and ct_a.ndim in (3, 4) and p.n % 16384 == 0
-            and p.n // 16384 in (1, 2, 4)):
-        return _mul_relin_hybrid_pallas(hk, ct_a, ct_b, hint_b, hint_a)
-    return _mul_relin_hybrid_jnp(hk, ct_a, ct_b, hint_b, hint_a)
-
-
-@partial(jax.jit, static_argnums=0)
-def _mul_relin_hybrid_jnp(hk: HybridKS, ct_a, ct_b, hint_b, hint_a):
-    """The jnp/XLA formulation (same NTT slot order as the kernels — the
-    bit-identity reference for the Pallas path on device,
-    scripts/verify_device.py)."""
+    equals the plaintext product — the §4 differential oracle)."""
     p, pe = hk.p, hk.pe
     qs = p.qs
-    L = len(qs)
     a0, a1 = ct_a[..., 0, :, :], ct_a[..., 1, :, :]
     b0, b1 = ct_b[..., 0, :, :], ct_b[..., 1, :, :]
     c0 = mulmod(a0, b0, qs)
@@ -388,70 +375,3 @@ def _mul_relin_hybrid_jnp(hk: HybridKS, ct_a, ct_b, hint_b, hint_a):
     out0 = _add(c0, r01[..., 0, :, :], p)
     out1 = _add(c1, r01[..., 1, :, :], p)
     return jnp.stack([out0, out1], axis=-3)
-
-
-def _mul_relin_hybrid_pallas(hk: HybridKS, ct_a, ct_b, hint_b, hint_a):
-    """Pallas path: kernel A (tensor product + iNTT c2, shared with
-    mul_relin_pallas), jnp Garner digits (cheap elementwise), the fused
-    hybrid digit-NTT+hint kernel (backend/pallas/mul_relin_pallas.py —
-    base extension in VMEM, D = dnum wide-dot NTT stages), then the joint
-    P-rescale. Bit-identical to the jnp formulation above.
-
-    Batches beyond the VMEM cap chunk through `lax.map`, same as
-    mul_relin_pallas: the while-loop SERIALIZES the fused calls — an
-    unrolled python loop of kernel calls lets XLA overlap neighboring
-    kernels' scoped-VMEM stacks and OOM at large batches."""
-    from alchemy_tpu.backend.pallas.mul_relin_pallas import max_batch
-
-    unbatched = ct_a.ndim == 3
-    if unbatched:
-        ct_a, ct_b = ct_a[None], ct_b[None]
-    Bt = ct_a.shape[0]
-    cap = max_batch(hk.p.n, len(hk.pe.qs),
-                    shoup=isinstance(hint_b, (tuple, list)))
-    if Bt <= cap:
-        out = _mul_relin_hybrid_pallas_one(hk, ct_a, ct_b, hint_b, hint_a)
-        return out[0] if unbatched else out
-    main = (Bt // cap) * cap
-
-    def chunk(ab):
-        return _mul_relin_hybrid_pallas_one(hk, ab[0], ab[1], hint_b, hint_a)
-
-    sh = (Bt // cap, cap, *ct_a.shape[1:])
-    out = jax.lax.map(
-        chunk, (ct_a[:main].reshape(sh), ct_b[:main].reshape(sh)))
-    out = out.reshape(main, *ct_a.shape[1:])
-    if main != Bt:
-        rest = _mul_relin_hybrid_pallas_one(
-            hk, ct_a[main:], ct_b[main:], hint_b, hint_a)
-        out = jnp.concatenate([out, rest], axis=0)
-    return out
-
-
-def _mul_relin_hybrid_pallas_one(hk: HybridKS, ct_a, ct_b, hint_b, hint_a):
-    """One fused-call batch (≤ max_batch cts) of the hybrid Pallas path."""
-    from alchemy_tpu.backend.pallas.mul_relin_pallas import (
-        _tensor_intt_call,
-        hybrid_digit_stage_pallas,
-    )
-
-    p, pe = hk.p, hk.pe
-    L, n = len(p.qs), p.n
-    Bt = ct_a.shape[0]
-
-    c0g, c1g, c2c = _tensor_intt_call(p, ct_a, ct_b)
-    A = c2c.shape[1]
-    Br = n // A
-    resh = c2c.reshape(Bt, A, L, Br)
-    xs_all = []
-    off = 0
-    for grp in hk.groups:
-        xs_all.extend(garner_digits(resh[..., off:off + len(grp), :], grp))
-        off += len(grp)
-    x_pack = jnp.concatenate(xs_all, axis=-1)
-    t01 = hybrid_digit_stage_pallas(n, pe.qs, hk.groups, x_pack,
-                                    hint_b, hint_a)
-    r01 = rescale_joint(pe, t01, len(hk.ps))        # [2, Bt, L, n]
-    out0 = _add(c0g.reshape(Bt, L, n), r01[0], p)
-    out1 = _add(c1g.reshape(Bt, L, n), r01[1], p)
-    return jnp.stack([out0, out1], axis=1)

@@ -4,6 +4,7 @@ The reference's only instrumentation is a wall-clock harness plus the static
 introspection interpreters (S/P/Params). Here:
 - `phase`: the wall-clock harness (examples/common.py `timed` re-export);
 - `trace`: a jax.profiler wrapper producing TensorBoard-readable traces;
+- `card_info`: the GPU's name and power limit, as nvidia-smi reports them;
 - `cost_table`: the per-op static cost table of a (compiled) expression —
   op COUNTS keyed by (op, modulus-chain annotation), derived from the IR
   (the "per-op cost table from the IR" of SURVEY §5). Data volumes are not
@@ -13,6 +14,7 @@ introspection interpreters (S/P/Params). Here:
 
 from __future__ import annotations
 
+import subprocess
 from collections import Counter
 from contextlib import contextmanager
 
@@ -30,6 +32,17 @@ def trace(logdir: str):
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+def card_info() -> str:
+    """`name, power.limit` of every visible GPU, one line each, as
+    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` prints
+    them. Every timing is kept beside this line: a card set below its
+    maximum power runs slower under load."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
 
 
 def cost_table(expr: Node) -> list[tuple[str, int]]:

@@ -1,7 +1,5 @@
 #!/usr/bin/env python
-"""Post-Kronecker device-time breakdown + MXU floor for the
-general-cyclotomic example workloads (VERDICT r4 missing #4: "3.4x faster
-without a bound is progress, not closure").
+"""Device-time breakdown for the general-cyclotomic example workloads.
 
 For Tunnel and HomomRLWR (the reference's shipped workloads,
 alchemy.cabal:81-123), this script:
@@ -10,12 +8,11 @@ alchemy.cabal:81-123), this script:
      trace time (backend/xla.MAC_COUNTER hook on axis_matmul),
   3. profiles per-op device time (jax.profiler via profile_trace.py) and
      buckets it into compute (dots/fusions) vs data movement
-     (copy/reshape/transpose/bitcast),
-  4. states the MXU-only floor: 16 digit-plane bf16 dots per base MAC at
-     the measured 69 TMAC/s digit-plane peak (BASELINE.md r2 microbench).
+     (copy/reshape/transpose/bitcast).
 
-Writes EXAMPLES_r05.json at the repo root. Env: EXP_ITERS (default 30),
-EXP_ONLY (tunnel|homomrlwr).
+Run from the repo root: python scripts/profile_examples.py
+Prints one JSON record per workload. Env: EXP_ITERS (default 30), EXP_ONLY
+(tunnel|homomrlwr).
 """
 
 from __future__ import annotations
@@ -25,72 +22,27 @@ import os
 import sys
 import time
 
-import numpy as np
-
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
 sys.path.insert(0, os.path.join(_ROOT, "scripts"))
 
-import jax
+from alchemy_tpu.utils.cache import setup_compile_cache
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/alchemy_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-MXU_TMACS = 69e12     # measured bf16 digit-plane dot peak (BASELINE.md)
-PLANE_DOTS = 16       # digit-plane expansion: 16 bf16 dots per base MAC
+setup_compile_cache()
 
 
-def _build_tunnel():
-    from alchemy_tpu.backend import xla_backend
-    from alchemy_tpu.core.cyc import Cyc
-    from alchemy_tpu.examples.common import H0, M_MAP, switch
-    from alchemy_tpu.examples.tunnel import PT, ZP, ZQS
+def _build(name):
+    from alchemy_tpu.examples import programs
     from alchemy_tpu.interp.jit_exec import jit_compile
-    from alchemy_tpu.interp.keys_hints import KeysHints
-    from alchemy_tpu.interp.pt2ct import pt2ct
-    from alchemy_tpu.nt.factor import totient
-    from alchemy_tpu.she.gadget import BaseBGad
 
-    bk = xla_backend()
-    rng = np.random.default_rng(1)
-    expr = switch(3, ZP, "xla")
-    ctx = KeysHints(3.0, seed=1, bk=bk)
-    compiled = pt2ct(expr, res_ty=PT, m_map=M_MAP, zqs=ZQS, gad=BaseBGad(2),
-                     ctx=ctx)
-    x = Cyc.from_coeffs(H0, (ZP,), rng.integers(0, ZP, totient(H0)), bk)
-    ct = compiled.encrypt_arg(x, 0)
-    return jit_compile(compiled, [ct]), [ct]
-
-
-def _build_homomrlwr():
-    from alchemy_tpu.backend import xla_backend
-    from alchemy_tpu.core.cyc import Cyc
-    from alchemy_tpu.examples.common import H0, M_MAP
-    from alchemy_tpu.examples.homomrlwr import PT, ZP_IN, ZQS, ring_round
-    from alchemy_tpu.interp.jit_exec import jit_compile
-    from alchemy_tpu.interp.keys_hints import KeysHints
-    from alchemy_tpu.interp.pt2ct import pt2ct
-    from alchemy_tpu.nt.factor import totient
-    from alchemy_tpu.she import bgv
-    from alchemy_tpu.she.gadget import TrivGad
-
-    bk = xla_backend()
-    rng = np.random.default_rng(0)
-    expr = ring_round("xla")
-    ctx = KeysHints(5.0, seed=0, bk=bk)
-    compiled = pt2ct(expr, res_ty=PT, m_map=M_MAP, zqs=ZQS, gad=TrivGad(),
-                     ctx=ctx)
-    s = Cyc.from_coeffs(H0, (ZP_IN,), rng.integers(0, ZP_IN, totient(H0)), bk)
-    a = Cyc.from_coeffs(H0, (ZP_IN,), rng.integers(0, ZP_IN, totient(H0)), bk)
-    enc_s = compiled.encrypt_arg(s, 0)
-    ct_sa = bgv.mul_public(a, enc_s)
-    return jit_compile(compiled, [ct_sa]), [ct_sa]
+    prog = programs.BUILDERS[name]("xla")
+    return jit_compile(prog.compiled, prog.args), prog.args
 
 
 MOVE_KEYS = ("copy", "reshape", "transpose", "bitcast", "slice", "dynamic")
 
 
-def profile_one(name, build, iters):
+def profile_one(name, iters):
     from alchemy_tpu.backend import xla as xla_mod
     from profile_trace import profile_step
 
@@ -99,7 +51,7 @@ def profile_one(name, build, iters):
     # BUILD and force a real trace
     os.environ["ALCHEMY_AOT_CACHE"] = "0"
     xla_mod.MAC_COUNTER = []
-    jfn, args = build()
+    jfn, args = _build(name)
     t0 = time.perf_counter()
     out = jfn(*args)
     for c in out.comps:
@@ -120,7 +72,6 @@ def profile_one(name, build, iters):
                   if any(k in n.lower() for k in MOVE_KEYS)) / iters
     comp_us = total_us - move_us
     n_ops = sum(c for _, _, c in inner) / iters
-    floor_us = base_macs * PLANE_DOTS / MXU_TMACS * 1e6
     top = [{"op": n[:80], "us_per_step": round(t / iters, 1),
             "count_per_step": round(c / iters, 1)}
            for n, t, c in inner[:12]]
@@ -133,29 +84,21 @@ def profile_one(name, build, iters):
         "device_ops_per_step": int(n_ops),
         "transform_groups_per_step": len(macs_rec),
         "exact_base_macs_per_step": int(base_macs),
-        "mxu_floor_us": round(floor_us, 1),
-        "floor_model": f"base_macs x {PLANE_DOTS} digit-plane bf16 dots "
-                       f"at {MXU_TMACS/1e12:.0f} TMAC/s",
-        "gap_to_floor": round(total_us / floor_us, 1) if floor_us else None,
         "trace_compile_s": round(compile_s, 1),
         "top_ops": top,
     }
 
 
 def main():
+    import jax
+
     iters = int(os.environ.get("EXP_ITERS", "30"))
     only = os.environ.get("EXP_ONLY", "")
-    recs = []
-    if only in ("", "tunnel"):
-        recs.append(profile_one("tunnel", _build_tunnel, iters))
-        print(json.dumps(recs[-1], indent=1), flush=True)
-    if only in ("", "homomrlwr"):
-        recs.append(profile_one("homomrlwr", _build_homomrlwr, iters))
-        print(json.dumps(recs[-1], indent=1), flush=True)
-    path = os.path.join(_ROOT, "EXAMPLES_r05.json")
-    with open(path, "w") as f:
-        json.dump({"workloads": recs}, f, indent=1)
-    print(f"wrote {path}", flush=True)
+    for name in ("tunnel", "homomrlwr"):
+        if only in ("", name):
+            rec = profile_one(name, iters)
+            rec["device_kind"] = jax.devices()[0].device_kind
+            print(json.dumps(rec, indent=1), flush=True)
 
 
 if __name__ == "__main__":

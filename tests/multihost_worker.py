@@ -16,7 +16,6 @@ pid, nproc, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
-os.environ.setdefault("ALCHEMY_NTT_IMPL", "vpu")
 
 import jax  # noqa: E402
 

@@ -95,7 +95,7 @@ def test_fast_rescale_correct():
 
 
 def test_mxu_ntt_matches_ring_mul():
-    # exactness of the MXU digit-plane matmul path at a small size
+    # exactness of the digit-plane matmul path at a small size
     import jax.numpy as jnp
     from alchemy_tpu.backend.ntt_mxu import intt_mxu, ntt_mxu
     from alchemy_tpu.backend.xla import mulmod
@@ -156,6 +156,48 @@ def test_deep_circuit_depth16():
 
     ok, depth = run(log_n=8, depth=16, verbose=False, impl="vpu")
     assert ok and depth == 16
+
+
+@pytest.mark.parametrize("ks", ["trivgad", "hybrid"])
+def test_deep_circuit_levels_compiled_up_front(ks, monkeypatch, caplog):
+    """Every level's hint, mul+relin and rescale program compiles in
+    compile_levels; the level loop reuses them and compiles none again."""
+    import logging
+    import re
+
+    import jax
+
+    from alchemy_tpu.examples import deep_circuit
+
+    level_fns = {"_relin_hint_rows", "_hybrid_hint_rows", "mul_relin",
+                 "mul_relin_hybrid", "rescale"}
+    real, mark = deep_circuit.compile_levels, {}
+
+    def compile_then_mark(*args):
+        real(*args)
+        mark["at"] = len(caplog.records)
+
+    def compiled(records):
+        found = (re.match(r"Compiling jit\((\w+)\)", r.getMessage())
+                 for r in records)
+        return {m.group(1) for m in found if m}
+
+    monkeypatch.setattr(deep_circuit, "compile_levels", compile_then_mark)
+    jax.clear_caches()
+    # set globally: compile_levels compiles in worker threads, which do not
+    # see a context manager's thread-local setting
+    jax.config.update("jax_log_compiles", True)
+    try:
+        with caplog.at_level(logging.WARNING):
+            ok, _ = deep_circuit.run(log_n=6, depth=3, ks=ks, verbose=False,
+                                     impl="vpu")
+    finally:
+        jax.config.update("jax_log_compiles", False)
+    assert ok
+    up_front = compiled(caplog.records[:mark["at"]]) & level_fns
+    assert up_front >= {"rescale", "mul_relin_hybrid" if ks == "hybrid"
+                        else "mul_relin"}
+    assert not compiled(caplog.records[mark["at"]:]) & level_fns
 
 
 def test_mul_relin_batched_leading_dims():
@@ -250,3 +292,60 @@ def test_ntt_mxu_int8_bit_identical():
     c2 = Cyc.from_coeffs(mm, (2,), m2, GB)
     want = GB.to_numpy((c1 * c2).to_pow().data)[0]
     assert np.array_equal(fast.decrypt(p8, s, out), want)
+
+
+def test_mxu3_r4_roundtrip_and_product():
+    """3-factor NTT at 2^16 (radix 4): exact roundtrip, and the negacyclic
+    square agrees with the butterfly transform's."""
+    from alchemy_tpu.backend.ntt_mxu3 import _split3, intt_mxu3, ntt_mxu3
+    from alchemy_tpu.backend.xla import mulmod
+
+    assert _split3(1 << 16) == (128, 128, 4)
+    p = FastParams.make(16, 2)
+    rng = np.random.default_rng(0)
+    x = np.stack([rng.integers(0, q, p.n) for q in p.qs]).astype(np.uint32)
+    xd = jnp.asarray(x)
+    y = ntt_mxu3(xd, p.n, p.qs)
+    assert np.array_equal(np.asarray(intt_mxu3(y, p.n, p.qs)), x)
+    y2 = ntt_negacyclic(xd, p.n, p.qs)
+    sq_mxu = intt_mxu3(mulmod(y, y, p.qs), p.n, p.qs)
+    sq_vpu = intt_negacyclic(mulmod(y2, y2, p.qs), p.n, p.qs)
+    assert np.array_equal(np.asarray(sq_mxu), np.asarray(sq_vpu))
+
+
+@pytest.mark.parametrize("K", [128, 256, 512])
+def test_fast_recombine_exact_at_bounds(K):
+    """Property-pin the byte-serial recombination of ntt_mxu._recombine_planes:
+    for plane sums up to the WORST-CASE bounds of the digit-plane dots
+    (s_f ≤ 4·K·255·255 for f ≤ 2, s_3 ≤ 4·K·255·63 — the scaled weights'
+    top byte is < 64 for q < 2^30), fast_ok=True returns the exact residue
+    of Σ_f 2^(8f)·s_f for random ~30-bit NTT-style primes, including the
+    extreme corner (all sums at their maxima). At K = 512 the byte-serial
+    assembly would overflow u32 there, so the K ≤ 256 guard must send the
+    sums down the exact carry chain."""
+    from alchemy_tpu.backend.ntt_mxu import _recombine_planes
+    from alchemy_tpu.backend.xla import shoup_const
+
+    rng = np.random.default_rng(12)
+    smax = 4 * K * 255 * 255
+    s3max = 4 * K * 255 * 63
+    qs = [((1 << 30) - rng.integers(1, 1 << 20)) | 1 for _ in range(3)]
+    qs.append((1 << 30) - 1)                      # extreme q
+    for q in map(int, qs):
+        t = {k: np.array([[v]], dtype=np.uint32) for k, v in (
+            ("q", q), ("r16", (1 << 16) % q),
+            ("r16s", shoup_const((1 << 16) % q, q)),
+            ("r32", (1 << 32) % q), ("r32s", shoup_const((1 << 32) % q, q)))}
+        cols = 64
+        s0 = rng.integers(0, smax + 1, cols).astype(np.uint64)
+        s1 = rng.integers(0, smax + 1, cols).astype(np.uint64)
+        s2 = rng.integers(0, smax + 1, cols).astype(np.uint64)
+        s3 = rng.integers(0, s3max + 1, cols).astype(np.uint64)
+        # corner: every sum at its max simultaneously
+        s0[0], s1[0], s2[0], s3[0] = smax, smax, smax, s3max
+        sums = [jnp.asarray(s.astype(np.uint32)[None]) for s in (s0, s1, s2, s3)]
+        value = (s0.astype(object) + (s1.astype(object) << 8)
+                 + (s2.astype(object) << 16) + (s3.astype(object) << 24))
+        got = np.asarray(_recombine_planes(sums, t, K, fast_ok=True))[0]
+        want = np.array([int(v) % q for v in value], dtype=np.uint32)
+        assert np.array_equal(got, want), (q, K)

@@ -9,7 +9,13 @@ import jax
 import jax.numpy as jnp
 
 from alchemy_tpu.backend.ntt import intt_negacyclic, ntt_negacyclic
-from alchemy_tpu.parallel.dist import DistConfig, make_dist_mul_relin, make_dist_ntt
+from alchemy_tpu.parallel.dist import (
+    DistConfig,
+    from_dist_layout,
+    make_dist_mul_relin,
+    make_dist_ntt,
+    to_dist_layout,
+)
 from alchemy_tpu.parallel.mesh import make_mesh
 from alchemy_tpu.she import fast
 from alchemy_tpu.she.fast import FastParams
@@ -27,23 +33,17 @@ def setup(log_n=8, nlimb=4, n1=None):
     return p, cfg, mesh
 
 
-def to_dist_layout(coeffs, cfg):
-    """coeff-index order → (j2, j1) storage order."""
-    n1, n2 = cfg.n1, cfg.n2
-    idx = np.empty(cfg.p.n, dtype=np.int64)
-    for j2 in range(n2):
-        for j1 in range(n1):
-            idx[j2 * n1 + j1] = j1 * n2 + j2
-    return coeffs[..., idx]
-
-
-def from_dist_layout(stored, cfg):
-    n1, n2 = cfg.n1, cfg.n2
-    idx = np.empty(cfg.p.n, dtype=np.int64)
-    for j2 in range(n2):
-        for j1 in range(n1):
-            idx[j1 * n2 + j2] = j2 * n1 + j1
-    return stored[..., idx]
+@pytest.mark.parametrize("n1", [4, 16])
+def test_dist_layout_is_the_j2_j1_order(n1):
+    """Storage slot j2·n1 + j1 holds coefficient j1·n2 + j2, and
+    from_dist_layout undoes it (leading axes pass through)."""
+    _, cfg, _ = setup(n1=n1)
+    coeffs = np.arange(3 * cfg.p.n).reshape(3, cfg.p.n)
+    stored = to_dist_layout(coeffs, cfg)
+    for j2 in range(cfg.n2):
+        for j1 in range(cfg.n1):
+            assert stored[1, j2 * cfg.n1 + j1] == coeffs[1, j1 * cfg.n2 + j2]
+    assert np.array_equal(from_dist_layout(stored, cfg), coeffs)
 
 
 def test_dist_ntt_roundtrip():
@@ -234,7 +234,7 @@ def test_pick_dist_strategy_single_process():
     from alchemy_tpu.parallel.dist import pick_dist_strategy
 
     _, _, mesh = setup()
-    assert pick_dist_strategy(mesh) == "a2a"  # all local → ICI all_to_all
+    assert pick_dist_strategy(mesh) == "a2a"  # all_to_all everywhere
 
 
 def test_dist_ntt_communication_pattern():

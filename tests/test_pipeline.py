@@ -105,8 +105,8 @@ def test_pipeline_depth_not_divisible_by_stages():
         cur = jnp.asarray(np.asarray(ct))
         for lvl, (pp, hb, ha) in enumerate(ref_hints):
             pb, pa = hints[lvl]
-            full = fast._mul_relin_jnp(p, cur, cur, jnp.asarray(pb),
-                                       jnp.asarray(pa))
+            full = fast.mul_relin(p, cur, cur, jnp.asarray(pb),
+                                  jnp.asarray(pa))
             cur = rescale_padded(p, full, {
                 k2: jnp.asarray(v)
                 for k2, v in _level_consts(p, lvl).items()})
